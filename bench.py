@@ -45,13 +45,12 @@ REF_CNN_IMG_PER_SEC = 3.69 * 1024  # ≈ 3,778 images/sec (2 GPUs)
 REF_FIRST_EPOCH_PENALTY = (9 * 60 + 28) / 49.0
 
 
-def _barrier(ts):
-    """Force a real device->host transfer of an updated parameter: under
-    this PJRT runtime block_until_ready resolves optimistically, so only
-    device_get actually drains the step chain."""
-    import jax
-    leaf = jax.tree_util.tree_leaves(ts["params"])[0]
-    np.asarray(jax.device_get(leaf))
+def _device_info(mesh) -> dict:
+    """The devices a timing was taken on (a CPU run's numbers are not
+    device metrics)."""
+    d = mesh.devices.flat[0]
+    return {"platform": d.platform, "device_kind": d.device_kind,
+            "n_chips": mesh.devices.size}
 
 
 def _iwgan(args, mesh):
@@ -110,11 +109,11 @@ def run_compute(args) -> dict:
     s = stream()
     for _ in range(args.warmup):
         ts, _ = model.train(ts, s)
-    _barrier(ts)
+    jax.block_until_ready(ts)
     t0 = time.perf_counter()
     for _ in range(args.steps):
         ts, _ = model.train(ts, s)
-    _barrier(ts)
+    jax.block_until_ready(ts)
     elapsed = time.perf_counter() - t0
 
     img_per_sec = args.steps * args.batch / elapsed
@@ -127,7 +126,7 @@ def run_compute(args) -> dict:
         "detail": {
             "step_time_s": round(elapsed / args.steps, 5),
             "images_per_sec_total": round(img_per_sec, 2),
-            "n_chips": n_chips,
+            **_device_info(mesh),
             "reference_images_per_sec_2gpu": round(REF_IWGAN_IMG_PER_SEC, 2),
         },
     }
@@ -268,7 +267,7 @@ def run_e2e(args) -> dict:
     warm = warm_stream()
     for _ in range(2):
         ts, _ = model.train(ts, warm)
-    _barrier(ts)
+    jax.block_until_ready(ts)
     if not args.device_cache:
         # rebuild the source so the record cache is cold for the timed
         # epoch 1 (moot for the device cache: its one-time fill already
@@ -290,7 +289,7 @@ def run_e2e(args) -> dict:
         nonlocal ts
         for _ in range(calls_per_epoch):
             ts, _ = model.train(ts, s)
-        _barrier(ts)
+        jax.block_until_ready(ts)
         return time.perf_counter() - t0
 
     first = one_epoch()
@@ -321,7 +320,7 @@ def run_e2e(args) -> dict:
             "reference_first_epoch_penalty": round(REF_FIRST_EPOCH_PENALTY, 2),
             "calls_per_epoch": calls_per_epoch,
             "records": args.e2e_count,
-            "n_chips": n_chips,
+            **_device_info(mesh),
         },
     }
     _flag_nonbaseline_config(result, args, args.model)
@@ -352,7 +351,7 @@ def _load_run(run_dir: str, mesh, epoch: int | None = None):
     ts = model.init_state(jax.random.PRNGKey(margs.seed), host)
     path = None
     if epoch is not None:
-        path = os.path.join(run_dir, f"checkpoint-{epoch}.msgpack")
+        path = os.path.join(run_dir, f"checkpoint-{epoch}.npz")
     wrapper = CheckpointManager(run_dir).restore(
         {"train_state": ts, "epoch": np.int64(0)}, path=path)
     return model, wrapper["train_state"], splits, margs
@@ -445,9 +444,8 @@ def main() -> None:
                         help="Transposed-conv lowering (see PERF.md).")
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["float32", "bfloat16"],
-                        help="bf16 activations with f32 master params is the "
-                             "TPU-native default (+14%% over f32 activations; "
-                             "losses verified stable).")
+                        help="bf16 activations with f32 master params "
+                             "(train.py defaults to float32).")
     parser.add_argument("--no_fused", action="store_true", default=False,
                         help="A/B switch: dispatch each critic sub-step "
                              "separately instead of the fused one-program "
@@ -490,12 +488,12 @@ def main() -> None:
     parser.add_argument("--out", default=None,
                         help="Write the FULL result JSON (detail included) "
                              "to this file; stdout always carries only the "
-                             "short headline line. Default: the headline "
-                             "mode writes workspace/artifacts/"
-                             "bench_detail.json + a tracked mirror at "
-                             "artifacts/bench_detail.json.")
+                             "short headline line. Default: workspace/"
+                             "artifacts/<mode>.json.")
     args = parser.parse_args()
 
+    from hemx.utils.misc import enable_compile_cache
+    enable_compile_cache()
     from hemx.ops.layers import set_compute_dtype, set_deconv_impl
     set_compute_dtype(args.dtype)
     set_deconv_impl(args.deconv_impl)
@@ -507,97 +505,45 @@ def main() -> None:
         result = run_e2e(args)
     else:
         result = run_compute(args)
-        _attach_artifacts(result)
     result.setdefault("detail", {})["provenance"] = {
         "measured_utc": time.strftime("%Y-%m-%d %H:%M:%S",
                                       time.gmtime()),
         "argv": " ".join(sys.argv),
     }
-    detail_paths = _write_detail(result, args)
-    # stdout stays ONE SHORT LINE in every mode: round 3's driver record
-    # (BENCH_r03.json) came back `parsed: null` because the full detail
-    # (fid provenance + four e2e sections) outgrew the driver's tail
-    # capture and chopped the line's head. The detail lives in the files
-    # above; the line carries the headline + pointers.
+    detail_path = _write_detail(result, args)
+    # stdout stays ONE SHORT LINE in every mode: a reader of the output's
+    # tail must be able to parse it. The detail lives in the file above;
+    # the line carries the headline + a pointer.
     short = {"metric": result["metric"], "value": result["value"],
              "unit": result["unit"], "vs_baseline": result["vs_baseline"]}
     if "vs_baseline_note" in result:
         short["vs_baseline_note"] = result["vs_baseline_note"]
     detail = result.get("detail", {})
     for k in ("step_time_s", "steady_epoch_s", "first_epoch_penalty",
-              "n_chips", "samples", "fid_encoder", "checkpoint_epoch"):
+              "platform", "device_kind", "n_chips", "samples", "fid_encoder",
+              "checkpoint_epoch"):
         if k in detail:
             short[k] = detail[k]
-    if detail_paths:
-        short["detail_file"] = detail_paths[-1]
+    short["detail_file"] = detail_path
     print(json.dumps(short))
 
 
-def _write_detail(result: dict, args) -> list[str]:
-    """Write the full result JSON to --out (if given) or, for the headline
-    compute mode, to workspace/artifacts/bench_detail.json plus a tracked
-    mirror at artifacts/bench_detail.json (workspace/ is gitignored and
-    wiped between sessions; the tracked copy is what the round's
-    BENCH_r*.json pointer resolves to later). Returns repo-relative paths
-    written, least-durable first."""
+def _write_detail(result: dict, args) -> str:
+    """Write the full result JSON to --out, or else to one rotating file
+    per mode under workspace/artifacts/. Returns the path written,
+    repo-relative."""
     root = os.path.dirname(os.path.abspath(__file__))
     if args.out:
-        targets = [args.out]
-    elif not args.fid and not args.e2e:
-        targets = [os.path.join(root, "workspace", "artifacts",
-                                "bench_detail.json"),
-                   os.path.join(root, "artifacts", "bench_detail.json")]
+        target = args.out
     else:
-        # ad-hoc --fid/--e2e without --out: the full detail (encoder FID,
-        # data floors, epoch bands ...) must land SOMEWHERE — stdout is
-        # the short line only. Scripts pass explicit --out; this default
-        # is one rotating file per mode.
-        name = "fid_last.json" if args.fid else "e2e_last.json"
-        targets = [os.path.join(root, "workspace", "artifacts", name)]
-    written = []
-    for t in targets:
-        os.makedirs(os.path.dirname(os.path.abspath(t)), exist_ok=True)
-        with open(t, "w") as f:
-            json.dump(result, f, indent=1)
-            f.write("\n")
-        written.append(os.path.relpath(os.path.abspath(t), root))
-    return written
-
-
-def _attach_artifacts(result: dict) -> None:
-    """Fold previously-computed round artifacts (sample FID from
-    `bench.py --fid`, pipeline numbers from `bench.py --e2e`, both produced
-    by scripts/aux_artifacts.sh) into the headline JSON's detail, so the
-    detail-file record carries quality alongside throughput.
-
-    Two locations are searched: ``workspace/artifacts/`` (fresh, this
-    session's runs — gitignored, so it does NOT survive between sessions)
-    and the tracked ``artifacts/`` directory, which aux_artifacts.sh
-    mirrors into so the latest measured JSONs persist across session
-    wipes. Fresh wins over tracked, and every attached block is tagged
-    with its source file + mtime so a record mixing fresh throughput with
-    stale pipeline numbers is self-describing (ADVICE r3)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    for name, key in (("fid.json", "fid"), ("e2e.json", "e2e"),
-                      ("e2e_cnn.json", "e2e_cnn"),
-                      ("e2e_cached.json", "e2e_cached"),
-                      ("e2e_cnn_cached.json", "e2e_cnn_cached")):
-        for base, src in ((os.path.join(root, "workspace", "artifacts"),
-                           "fresh"),
-                          (os.path.join(root, "artifacts"), "tracked")):
-            path = os.path.join(base, name)
-            try:
-                with open(path) as f:
-                    block = dict(json.load(f)["detail"])
-                block["attached_from"] = {
-                    "file": os.path.relpath(path, root), "source": src,
-                    "mtime_utc": time.strftime(
-                        "%Y-%m-%d %H:%M:%S",
-                        time.gmtime(os.path.getmtime(path)))}
-                result.setdefault("detail", {})[key] = block
-                break
-            except (OSError, ValueError, KeyError):
-                pass
+        name = ("fid_last.json" if args.fid else
+                "e2e_last.json" if args.e2e else "bench_detail.json")
+        target = os.path.join(root, "workspace", "artifacts", name)
+    os.makedirs(os.path.dirname(os.path.abspath(target)), exist_ok=True)
+    with open(target, "w") as f:
+        json.dump(result, f, indent=1)
+        f.write("\n")
+    return os.path.relpath(os.path.abspath(target), root)
 
 
 if __name__ == "__main__":

@@ -17,10 +17,12 @@ import jax
 import hemx
 from hemx.models.plugin import get_model
 from hemx.parallel.mesh import make_mesh
+from hemx.utils.misc import enable_compile_cache
 
 
 def main(argv=None) -> int:
     args = hemx.parse_args(argv, display=True)
+    enable_compile_cache()
     from hemx.ops.layers import (set_compute_dtype, set_deconv_impl,
                                  set_default_precision)
     set_default_precision(getattr(args, "precision", "default"))

@@ -1,6 +1,6 @@
-"""hemx — a TPU-native (JAX/XLA/Pallas) rebuild of the `hem` autoencoder/GAN framework.
+"""hemx — a JAX/XLA rebuild of the `hem` autoencoder/GAN framework.
 
-hemx re-implements, TPU-first, every capability of the reference framework
+hemx re-implements, on JAX, every capability of the reference framework
 (`algoterranean/3dgan`, a TF-1.x research stack for convolutional autoencoders,
 VAEs, GAN/WGAN/IWGAN, pix2pix and a monocular-depth-estimation cGAN model zoo):
 
@@ -17,7 +17,7 @@ VAEs, GAN/WGAN/IWGAN, pix2pix and a monocular-depth-estimation cGAN model zoo):
 * TensorBoard-compatible tfevents writing without TensorFlow
   (reference write path: hem/ops/summaries.py).
 
-Layout is NHWC end-to-end (TPU-preferred); the reference v2 used NCHW
+Layout is NHWC end-to-end; the reference v2 used NCHW
 (hem/ops/layers.py:117-119) — conversion helpers live in ``hemx.ops.images``.
 """
 

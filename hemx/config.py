@@ -10,7 +10,7 @@ hem/util/misc.py:72-105, train.py:25-37):
 * every run's resolved options are dumped to ``<dir>/options.config``
   (re-ingestable) plus a JSON twin.
 
-TPU-relevant deltas: ``--n_gpus`` is kept as an alias for ``--n_devices``
+Deltas: ``--n_gpus`` is kept as an alias for ``--n_devices``
 (mesh size); new flags ``--dtype`` (compute dtype) and ``--mesh`` are added.
 """
 
@@ -41,7 +41,7 @@ class CustomArgumentParser(argparse.ArgumentParser):
 
 def build_base_parser() -> CustomArgumentParser:
     parser = CustomArgumentParser(
-        description="hemx training harness (TPU-native rebuild of hem).",
+        description="hemx training harness (JAX rebuild of hem).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
         fromfile_prefix_chars="@",
         conflict_handler="resolve",
@@ -60,14 +60,14 @@ def build_base_parser() -> CustomArgumentParser:
                            "[H,W,out,in] layout) over a second 'model' mesh "
                            "axis of this size (must divide the device "
                            "count). 1 = pure data parallelism. No reference "
-                           "analogue — the TPU-native scaling dimension for "
-                           "models too large for one chip's HBM.")
+                           "analogue — the scaling dimension for models too "
+                           "large for one device's memory.")
     misc.add_argument("--spatial_parallel", type=int, default=1,
                       help="Spatial-parallel degree: shard every image "
                            "tensor's height dim over a 'spatial' mesh axis "
                            "of this size (must divide the device count and "
                            "the image height); GSPMD inserts the conv halo "
-                           "exchanges. 1 = off. The TPU-native form of the "
+                           "exchanges. 1 = off. The sharded form of the "
                            "reference's patch-based spatial decomposition "
                            "(paper_fullimage.py:302-316) for images whose "
                            "activations outgrow one chip's HBM.")
@@ -126,15 +126,16 @@ def build_base_parser() -> CustomArgumentParser:
                             "(params stay float32).")
     train.add_argument("--precision", type=str.lower, default="default",
                        choices=["default", "high", "highest"],
-                       help="MXU precision: 'default' = bf16 inputs with f32 "
-                            "accumulation (TPU-native, fast); 'highest' = "
-                            "full f32 for strict reference parity.")
+                       help="Matmul/conv precision for float32 operands: "
+                            "'default' lets XLA pick (on the GPU: TF32 tensor "
+                            "cores, fast); 'highest' = full f32 for strict "
+                            "reference parity.")
     train.add_argument("--deconv_impl", type=str.lower, default="dilated",
                        choices=["dilated", "phase_split"],
                        help="Transposed-conv lowering: 'dilated' = textbook "
                             "lhs-dilated conv; 'phase_split' = same values "
                             "as s^2 dense convs + interleave (skips the "
-                            "MXU's zero-stuffed multiplies; see PERF.md).")
+                            "dilated form's zero-stuffed multiplies).")
 
     opt = parser.add_argument_group("Optimizer")
     opt.add_argument("--optimizer", type=str.lower, default="rmsprop")

@@ -1,7 +1,7 @@
 """Minimal functional module system for hemx.
 
 The reference framework builds TF-1 graphs with variable scopes and ``reuse``
-flags (reference: ops/layers.py, hem/ops/layers.py). The TPU-native equivalent
+flags (reference: ops/layers.py, hem/ops/layers.py). The functional equivalent
 is a pair of pure functions per layer:
 
 * ``init(key, in_shape) -> (params, state, out_shape)`` — allocates parameter
@@ -14,7 +14,7 @@ is a pair of pure functions per layer:
 
 ``Ctx`` carries trace-time call context: training mode, an RNG key that is
 split deterministically per consumer, and an optional intermediates capture
-dict (the TPU-native replacement for TF graph collections such as
+dict (the replacement for TF graph collections such as
 'conv_layers'/'dense_layers', reference: ops/layers.py:59-60).
 """
 

@@ -4,7 +4,7 @@ hemx is NHWC; the NCHW<->NHWC helpers exist for interop with reference-style
 configs and for montage/summary code.
 
 ``colorize`` is host-side by design: the reference ran an OpenCV colormap via
-``tf.py_func`` *inside the graph* (hem/ops/images.py:10-50); on TPU a host
+``tf.py_func`` *inside the graph* (hem/ops/images.py:10-50); on an accelerator a host
 callback in the step would stall the device, so colorization happens at
 summary-write time on numpy arrays (matplotlib colormaps replace cv2).
 """

@@ -1,9 +1,9 @@
 """Functional layer constructors.
 
-TPU-native rebuild of the reference layer vocabulary
+JAX rebuild of the reference layer vocabulary
 (reference: ops/layers.py — v1 NHWC; hem/ops/layers.py — v2 NCHW).
-hemx is NHWC end-to-end: on TPU, XLA lowers NHWC convolutions straight onto
-the MXU; NCHW was a cuDNN preference that does not apply here.
+hemx is NHWC end-to-end, the layout XLA's GPU backend hands to cuDNN for
+tensor-core convolutions.
 
 Parity decisions (recorded per SURVEY.md §7.2 step 2):
 
@@ -43,12 +43,12 @@ from hemx.ops import initializers
 
 _CONV_DIMS = ("NHWC", "HWIO", "NHWC")
 
-# Global MXU precision policy. 'default' = native bf16 MXU passes with f32
-# accumulation — the TPU-native fast path and hemx's default. 'highest' =
-# full f32 emulation (6 bf16 passes per conv; ~10x slower to compile AND run)
-# for strict numerical parity with the reference's f32 GPU math — enable via
+# Global precision policy for float32 convs and matmuls. 'default' lets
+# XLA choose; on the GPU it may run them on TF32 tensor cores (about three
+# decimal digits), and it is hemx's default. 'highest' keeps full f32 for
+# strict numerical parity with the reference's f32 GPU math — enable via
 # --precision highest. Golden unit tests run on CPU where 'default' is
-# already exact f32.
+# already exact f32. bf16 operands (--dtype bfloat16) are unaffected.
 _PRECISION = lax.Precision.DEFAULT
 
 
@@ -64,7 +64,7 @@ def get_default_precision():
 
 
 # Compute dtype policy (--dtype bfloat16): layers cast inputs and kernels to
-# this dtype before the MXU op (halving HBM traffic for activations) while
+# this dtype before the conv/matmul (halving HBM traffic for activations) while
 # accumulating in f32. None = passthrough (params' dtype, default f32).
 _COMPUTE_DTYPE = None
 
@@ -102,11 +102,11 @@ def conv2d_op(x, kernel, stride: int = 1, padding: str = "SAME"):
 # Transposed-conv lowering strategy. 'dilated' is the textbook transpose
 # (lhs-dilated conv — zero-stuffed input); 'phase_split' computes the same
 # values as s^2 dense stride-1 convs over the *undilated* input (one per
-# output phase) followed by an interleave — on the MXU the dilated form
+# output phase) followed by an interleave — the dilated form
 # multiplies (s^2-1)/s^2 zeros, so phase-split does s^2x fewer real MACs.
 # Both paths sum exactly the same nonzero products per output element;
-# selection via set_deconv_impl / --deconv_impl (measured on the real chip,
-# see PERF.md "Transposed-conv lowering").
+# selection via set_deconv_impl / --deconv_impl (which is faster on the
+# H100 is not measured yet: ROADMAP speed item 5).
 _DECONV_IMPL = "dilated"
 
 
@@ -391,11 +391,9 @@ def dense(output_size: int, *, input_size: Optional[int] = None,
         xx, w = _cast_in(x, params["w"])
         # Output in the compute dtype, like the conv path. The f32 half of
         # the bf16-inputs/f32-accumulate policy holds at the hardware
-        # level: the TPU MXU accumulates K-tile partials in f32 and rounds
+        # level: tensor cores accumulate bf16 products in f32 and round
         # ONCE at the output — preferred_element_type here sets the output
-        # dtype, not the accumulator. Forcing an f32 output instead
-        # measured -3% on the IWGAN headline (r3 A/B) with no accuracy
-        # benefit at this zoo's contraction sizes (K <= 4x4x256).
+        # dtype, not the accumulator.
         y = jnp.dot(xx, w, preferred_element_type=_COMPUTE_DTYPE or jnp.float32,
                     precision=_PRECISION) + params["b"].astype(
                         _COMPUTE_DTYPE or jnp.float32)

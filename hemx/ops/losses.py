@@ -17,7 +17,7 @@ def guarded_one_minus(p):
     saturates to exactly 1.0. Under jit, XLA's algebraic simplifier folds
     ``eps + (1 - p)`` into ``(eps + 1) - p`` and constant-folds
     ``1e-8 + 1.0 -> 1.0`` in f32, annihilating the guard at COMPILE time —
-    no parenthesization or clamp survives the rewrite (measured on TPU: a
+    no parenthesization or clamp survives the rewrite (measured: a
     saturated sigmoid output produced ``log(0) = -inf`` inside the fused
     program — then ``0 * -inf = NaN`` killed a 100-epoch VAE run at its last
     epoch — while the same op-by-op computation was finite). The

@@ -2,7 +2,7 @@
 
 ``jit_step`` compiles a pure train step with the batch sharded over the mesh's
 ``data`` axis and everything else replicated. XLA inserts the gradient
-all-reduce over ICI (scaling-book recipe: annotate shardings, let the compiler
+all-reduce (scaling-book recipe: annotate shardings, let the compiler
 place collectives). This replaces the reference's tower loop + CPU gradient
 averaging (hem/util/training.py:23-56) with zero host involvement.
 """

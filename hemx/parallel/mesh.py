@@ -1,31 +1,32 @@
 """Device mesh construction and sharding helpers.
 
-The TPU-native replacement for the reference's in-graph GPU towers
+The replacement for the reference's in-graph GPU towers
 (reference: hem/util/scoping.py:66-89 tower_scope_range,
 hem/util/training.py:23-56 average_gradients, hem/ops/input.py batch_slice):
 
 * a ``data`` mesh axis over local (or all, multi-host) devices;
 * the global batch is sharded over ``data``; params/opt-state are replicated
   over it; gradient reduction is whatever XLA inserts for the mean-loss grad
-  over the sharded batch — an ICI all-reduce, not a host round trip;
+  over the sharded batch — a device-to-device all-reduce, not a host round
+  trip;
 * an optional second ``model`` axis (``--model_parallel N``) tensor-shards
   every conv/dense kernel's LAST dim (and its optimizer moments) over ``N``
   devices — output channels for conv HWIO / dense [in, out] kernels, input
   channels for deconv kernels (which use the TF conv2d_transpose
-  [H, W, out, in] layout — CLAUDE.md) — GSPMD then partitions the MXU work
-  and activations channel-wise and places the boundary collectives on ICI. The reference has
-  no analogue (its scaling story stops at 2-GPU towers); this is the
-  TPU-native scaling dimension for models whose params/activations outgrow
-  one chip's HBM.
+  [H, W, out, in] layout — CLAUDE.md) — GSPMD then partitions the conv work
+  and activations channel-wise and inserts the boundary collectives. The
+  reference has no analogue (its scaling story stops at 2-GPU towers); this
+  is the scaling dimension for models whose params/activations outgrow one
+  device's memory.
 * an optional ``spatial`` axis (``--spatial_parallel N``) shards every image
   tensor's HEIGHT dim over ``N`` devices: params stay replicated across it,
   activations flow through the network spatially partitioned, and GSPMD
   inserts the conv halo exchanges (collective-permutes of the kernel-overlap
-  rows) on ICI. This is the TPU-native form of the reference's spatial
-  decomposition (its host-side patch fan-out, paper_fullimage.py:302-316,
-  splits scenes into 65x65 patches because one GPU can't hold the scene;
-  spatial sharding instead keeps ONE image's activations distributed across
-  chips) — the scaling dimension for images too large for a chip's HBM.
+  rows). This is the sharded form of the reference's spatial decomposition
+  (its host-side patch fan-out, paper_fullimage.py:302-316, splits scenes
+  into 65x65 patches because one GPU can't hold the scene; spatial sharding
+  instead keeps ONE image's activations distributed across devices) — the
+  scaling dimension for images too large for one device's memory.
 
 Multi-host: ``initialize_distributed`` wires jax.distributed so the same mesh
 spans slices over DCN (the reference was single-process; this is the rebuild's
@@ -62,10 +63,11 @@ def make_mesh(n_devices: int = 0, devices=None, model: int = 1,
     Defaults to a 1-D data-parallel mesh, axes ``("data",)``. ``model=m>1``
     or ``spatial=s>1`` adds that axis as the inner mesh dim: batch rows
     shard over ``data``, image height over ``spatial``, kernel output
-    channels over ``model`` (see module docstring). The inner axis
-    (``model``'s per-layer channel collectives / ``spatial``'s halo
-    exchanges fire far more often than ``data``'s one gradient all-reduce
-    per step) maps to the closest ICI neighbours.
+    channels over ``model`` (see module docstring). The inner axis takes
+    consecutive devices (``model``'s per-layer channel collectives and
+    ``spatial``'s halo exchanges fire far more often than ``data``'s one
+    gradient all-reduce per step); on an all-to-all NVLink host every pair
+    of devices is equally close, so the order costs nothing there.
 
     ``spatial`` and ``model`` are mutually exclusive: with both axes on one
     mesh, XLA's SPMD partitioner emits numerically WRONG conv weight

@@ -1,8 +1,8 @@
 """Montage (image grid) construction on host numpy.
 
 The reference built montages *in-graph* via split/concat/unstack
-(ops/summaries.py:95-124, hem/ops/summaries.py:138-181). On TPU that wastes
-step time; hemx assembles grids on host at summary-write time from the small
+(ops/summaries.py:95-124, hem/ops/summaries.py:138-181). On an accelerator
+that wastes step time; hemx assembles grids on host at summary-write time from the small
 example slice the step already returns.
 """
 

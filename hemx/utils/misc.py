@@ -3,12 +3,36 @@
 The TF-graph-specific helpers (collection_to_dict, add_to_collection) have
 no equivalent here — metrics travel as plain dicts. What remains:
 ``chunks`` (hem/util/misc.py chunks), ``fold`` batched evaluation
-(util.py:339-350), and ``visualize_parameters`` (hem/util/debug.py)."""
+(util.py:339-350), ``visualize_parameters`` (hem/util/debug.py), and
+``enable_compile_cache`` for the command-line entry points."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import jax
+
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def enable_compile_cache() -> str:
+    """Keep XLA's compiled programs on disk across processes; returns the
+    cache directory in use.
+
+    Called by the command-line entry points only (library import and the
+    tests leave JAX's config alone). When ``JAX_COMPILATION_CACHE_DIR`` is
+    set, JAX reads it itself and nothing is set here. Otherwise the cache is
+    ``.jax_cache/`` at the checkout root: a fixed path, so each run finds
+    what the runs before it compiled.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(_CHECKOUT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def chunks(lst, n: int):

@@ -7,7 +7,7 @@ and reassembling the overlapping 29x29 predictions with NaN-aware averaging
 (reference: build_batch :90-110, forward_inference :112-123, reconstruct
 :126-155). Per-stride RMSE and montage PNGs go to <dir>/fullimage/.
 
-TPU notes: patches are padded to a fixed chunk size so one compiled
+Compile notes: patches are padded to a fixed chunk size so one compiled
 executable serves every stride (the reference padded to 1024-multiples and
 chunked by 512); reassembly is host-side numpy.
 """
@@ -31,6 +31,7 @@ from hemx.parallel.mesh import make_mesh
 from hemx.summaries.montage import to_uint8
 from hemx.summaries.png import encode_png
 from hemx.train.checkpoint import CheckpointManager
+from hemx.utils.misc import enable_compile_cache
 
 PATCH = 65
 OUT = 29
@@ -119,6 +120,7 @@ def main(argv=None) -> int:
                              "analog of NYUv2's 427x561 frames vs 65x65 "
                              "crops.")
     a = parser.parse_args(argv)
+    enable_compile_cache()
 
     opts = load_options(os.path.join(a.dir, "options.json"))
     args = types.SimpleNamespace(**opts)

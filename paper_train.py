@@ -21,6 +21,7 @@ from hemx.ops.images import crop_to_bounding_box
 from hemx.parallel.mesh import make_mesh
 from hemx.summaries.montage import to_uint8
 from hemx.summaries.png import encode_png
+from hemx.utils.misc import enable_compile_cache
 
 
 def dataset_depth_moments(splits, args, crop: bool = True):
@@ -59,6 +60,7 @@ def dataset_depth_moments(splits, args, crop: bool = True):
 
 def main(argv=None) -> int:
     args = hemx.parse_args(argv, display=True)
+    enable_compile_cache()
     from hemx.ops.layers import (set_compute_dtype, set_deconv_impl,
                                  set_default_precision)
     set_default_precision(getattr(args, "precision", "default"))

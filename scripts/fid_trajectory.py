@@ -122,7 +122,7 @@ def main() -> int:
                 print(f"skip {label}: no run at {run_dir}")
             return
         if epoch is not None and not os.path.exists(
-                os.path.join(run_dir, f"checkpoint-{epoch}.msgpack")):
+                os.path.join(run_dir, f"checkpoint-{epoch}.npz")):
             if not carry(label):
                 print(f"skip {label}: no checkpoint-{epoch}")
             return

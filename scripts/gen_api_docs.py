@@ -21,8 +21,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# Force CPU so importing hemx (which imports jax) never touches the TPU —
-# doc generation must be runnable while a training job owns the chip.
+# Force CPU so importing hemx (which imports jax) never opens the GPU —
+# doc generation must be runnable while a training job owns the card.
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
@@ -36,7 +36,7 @@ MODULES = [
     "hemx.ops.losses",
     "hemx.ops.images",
     "hemx.ops.initializers",
-    "hemx.ops.pallas_kernels",
+    "hemx.ops.normalize",
     "hemx.data.plugin",
     "hemx.data.pipeline",
     "hemx.data.tfrecord",

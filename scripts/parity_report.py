@@ -90,8 +90,8 @@ def elapsed_seconds(model, max_gap: float = 600.0, base: str | None = None):
 
 def fid_artifact() -> tuple[dict, str] | None:
     """(detail dict, source path) of fid.json (bench.py --fid output): the
-    fresh workspace/artifacts/ copy if this session ran aux_artifacts.sh,
-    else the committed artifacts/ copy (workspace/ is session-local);
+    fresh workspace/artifacts/ copy if bench.py --fid ran in this
+    checkout, else a committed artifacts/ copy (workspace/ is not kept);
     None when neither exists. The source path + the detail's provenance
     are RENDERED into PARITY.md so a stale artifact attributed to a newer
     campaign is self-describing (ADVICE r3)."""
@@ -167,8 +167,7 @@ def _fid_trajectory_reading(rows: list[dict]) -> list[str]:
                     f"ceiling in the 2017 DCGAN architecture itself")
         out.append(
             f"Extending the same run to epoch "
-            f"{max(r['epoch'] for r in ext)} (scripts/"
-            f"iwgan300_extension.sh) shows the FID {verb}.")
+            f"{max(r['epoch'] for r in ext)} shows the FID {verb}.")
     gan, wgan = by_run.get("gan@100"), by_run.get("wgan@100")
     if gan and wgan:
         out.append(
@@ -434,8 +433,9 @@ def main(argv=None) -> int:
         print("missing parity runs under", os.path.normpath(W), ":",
               ", ".join(missing),
               "-- leaving the committed PARITY.md untouched "
-              "(run scripts/parity_campaign.sh first, or pass "
-              "--allow-partial)", file=sys.stderr)
+              "(train each anchor into workspace/parity/<model> and "
+              "touch <model>.done first, or pass --allow-partial)",
+              file=sys.stderr)
         return 1
 
     base = data_baselines()
@@ -445,10 +445,10 @@ def main(argv=None) -> int:
         "# PARITY — hemx vs reference `examples.org` anchors",
         "",
         f"Generated {ts} by `scripts/parity_report.py` from the",
-        "`scripts/parity_campaign.sh` runs: the five reference anchor configs",
+        "parity-campaign runs: the five reference anchor configs",
         "trained for the full **100 epochs** at the reference's exact",
         "hyperparameters (global batch 512, optimizer/lr/betas per row,",
-        "n_critic=5 for WGAN/IWGAN) on one TPU v5e chip.",
+        "n_critic=5 for WGAN/IWGAN) on one device.",
         "",
         "**Dataset caveat (and why it is unavoidable):** the reference rows",
         "were trained on its private `floorplans` set, which has no public",
@@ -471,7 +471,7 @@ def main(argv=None) -> int:
         "`~` marks a run with crash-restart/resume pauses dropped from the",
         "sum — its active training time, excluding idle gaps.)",
         "",
-        "| model | reference (2 GPUs, floorplans, 100 ep) | hemx (1×v5e, synthetic, 100 ep) | hemx elapsed / ref elapsed |",
+        "| model | reference (2 GPUs, floorplans, 100 ep) | hemx (1 device, synthetic, 100 ep) | hemx elapsed / ref elapsed |",
         "|---|---|---|---|",
     ]
     for model, info in rows:
@@ -577,7 +577,8 @@ def main(argv=None) -> int:
         "",
         "Raw event files land under the session-local (gitignored)",
         "`workspace/parity/<model>/`; this committed report is the durable",
-        "record (regenerate: `bash scripts/parity_campaign.sh`, then this",
+        "record (regenerate: train each anchor with `train.py` into",
+        "`workspace/parity/<model>`, touch `<model>.done`, then run this",
         "script).",
     ]
     with open(OUT, "w") as f:

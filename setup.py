@@ -21,8 +21,8 @@ if os.environ.get("HEMX_BUILD_NATIVE", "1") == "1":
 setup(
     name="hemx",
     version="0.1.0",
-    description="TPU-native autoencoder/GAN research framework "
-                "(JAX/XLA/Pallas rebuild of hem)",
+    description="Autoencoder/GAN research framework "
+                "(JAX/XLA rebuild of hem)",
     packages=find_packages(include=["hemx", "hemx.*"]),
     # hemx.native.load() prefers the prebuilt hemx.data._native extension
     # (above); the source is shipped too so the build-on-demand path can
@@ -32,7 +32,7 @@ setup(
                 "paper_metrics", "paper_fullimage", "paper_visualize",
                 "events", "visualize_gui", "bench"],
     python_requires=">=3.10",
-    install_requires=["jax", "optax", "flax", "numpy"],
+    install_requires=["jax", "optax", "numpy"],
     extras_require={"viz": ["matplotlib", "pillow"]},
     ext_modules=ext_modules,
 )

@@ -2,6 +2,8 @@
 (SURVEY.md §4 rebuild implications: smoke-train each model, assert loss falls,
 checkpoint round-trips, and DP == single-device grads)."""
 
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -268,6 +270,67 @@ class TestCheckpointRoundtrip:
         for e in range(5):
             mgr.save({"x": np.zeros(3)}, e)
         assert [e for e, _ in mgr.checkpoints()] == [3, 4]
+
+    def test_iwgan_state_roundtrip_bf16_and_rng(self, tmp_path):
+        """A trained IWGAN state (two optimizers' adam moments, the uint32
+        PRNG key, the int32 step) plus bfloat16 leaves come back bit for
+        bit and dtype for dtype; max_to_keep prunes the older files."""
+        import jax.numpy as jnp
+        from hemx.train.checkpoint import CheckpointManager
+        args, mesh, splits, model, ts, gb = _setup(
+            "iwgan", batch_size=2, n_disc_train=1, optimizer="adam")
+        ts, _ = model.train(ts, _stream(splits, gb, mesh))
+
+        def wrap(ts, epoch):
+            return {"train_state": ts, "epoch": np.int64(epoch),
+                    "bf16": jax.tree_util.tree_map(
+                        lambda x: x.astype(jnp.bfloat16), ts["params"])}
+
+        mgr = CheckpointManager(str(tmp_path), max_to_keep=2)
+        for e in range(3):
+            mgr.save(wrap(ts, e), e)
+        assert sorted(os.listdir(tmp_path)) == ["checkpoint-1.npz",
+                                                "checkpoint-2.npz"]
+
+        host_batch = next(splits["train"].iter_epoch(gb, shuffle=False))
+        fresh = get_model("iwgan")(args, mesh).init_state(
+            jax.random.PRNGKey(123), host_batch)
+        got = mgr.restore(wrap(fresh, 0))
+        want = jax.device_get(wrap(ts, 2))
+        assert (jax.tree_util.tree_structure(got)
+                == jax.tree_util.tree_structure(want))
+        for a, b in zip(jax.tree_util.tree_leaves(got),
+                        jax.tree_util.tree_leaves(want)):
+            assert a.dtype == b.dtype and a.shape == np.shape(b)
+            assert a.tobytes() == np.asarray(b).tobytes()
+        assert got["bf16"]["generator"]["fc1"]["w"].dtype == jnp.bfloat16
+        assert got["train_state"]["rng"].dtype == np.uint32
+        assert int(got["epoch"]) == 2
+
+    @pytest.mark.parametrize("case", ["missing", "shape", "dtype",
+                                      "old_format"])
+    def test_restore_refuses_mismatch(self, tmp_path, case):
+        """Restore names the leaf that disagrees with the template instead
+        of loading garbage; a workspace of the retired msgpack format is
+        refused rather than silently retrained from scratch."""
+        from hemx.train.checkpoint import CheckpointManager
+        mgr = CheckpointManager(str(tmp_path))
+        saved = {"w": np.zeros((2, 3), np.float32), "step": np.int32(4)}
+        template = {
+            "missing": {**saved, "b": np.zeros(3, np.float32)},
+            "shape": {**saved, "w": np.zeros((3, 2), np.float32)},
+            "dtype": {**saved, "w": np.zeros((2, 3), np.float16)},
+            "old_format": saved,
+        }[case]
+        if case == "old_format":
+            (tmp_path / "checkpoint-7.msgpack").write_bytes(b"\x80")
+            with pytest.raises(RuntimeError, match="msgpack"):
+                mgr.restore(template)
+            return
+        mgr.save(saved, 1)
+        with pytest.raises(ValueError, match=r"\['b'\]" if case == "missing"
+                           else r"\['w'\]"):
+            mgr.restore(template)
 
 
 class TestDataParallel:
@@ -687,7 +750,7 @@ class TestSpatialParallel:
     """--spatial_parallel: image-height sharding over a 'spatial' mesh axis
     (hemx.parallel.mesh.batch_spec); GSPMD supplies the conv halo
     exchanges. Shardings never change math — spatially-partitioned runs
-    must equal single-device runs on the same global batch. TPU-native
+    must equal single-device runs on the same global batch. Sharded
     replacement for the reference's patch-based spatial decomposition
     (paper_fullimage.py:302-316)."""
 

@@ -96,7 +96,7 @@ class TestLosses:
         # The eps guard eps + (1 - x_hat) must be pinned behind an
         # optimization barrier: UNDER JIT, XLA's algebraic simplifier folds
         # it into (eps + 1) - x_hat and rounds 1e-8 + 1.0 -> 1.0 in f32
-        # (verified on both the TPU and CPU backends), so the fused program
+        # (verified on the CPU backend), so the fused program
         # computes 0 * log(0) = NaN while the eager ops are finite — this
         # killed a 100-epoch VAE run at its last epoch, twice, before the
         # barrier fix (hemx.ops.losses.guarded_one_minus).
@@ -498,11 +498,11 @@ class TestLayers:
         assert set(ctx.intermediates) == {"d1", "d2"}
 
 
-class TestPallasKernels:
+class TestNormalize:
     def test_u8_normalize_matches_reference_math(self):
         """The XLA normalize must match /255 exactly for every lo/hi."""
         import numpy as np
-        from hemx.ops.pallas_kernels import u8_normalize, u16_normalize
+        from hemx.ops.normalize import u8_normalize, u16_normalize
         x = np.random.default_rng(0).integers(0, 256, (4, 32, 32, 3),
                                               dtype=np.uint8)
         y = np.asarray(u8_normalize(jnp.asarray(x), 0.0, 1.0))
@@ -515,18 +515,6 @@ class TestPallasKernels:
         yd = np.asarray(u16_normalize(jnp.asarray(d)))
         np.testing.assert_allclose(yd, d.astype(np.float32) / 65535.0,
                                    atol=1e-7)
-
-    def test_retired_pallas_variant_matches_xla(self):
-        """u8_normalize_pallas (the retired hand kernel, kept as the
-        exercised Pallas integration example) must agree with the XLA
-        path bit-for-bit; on CPU its jnp fallback runs."""
-        import numpy as np
-        from hemx.ops.pallas_kernels import u8_normalize, u8_normalize_pallas
-        x = np.random.default_rng(2).integers(0, 256, (8, 32, 32, 3),
-                                              dtype=np.uint8)
-        a = np.asarray(u8_normalize(jnp.asarray(x), -1.0, 1.0))
-        b = np.asarray(u8_normalize_pallas(jnp.asarray(x), -1.0, 1.0))
-        np.testing.assert_allclose(a, b, atol=1e-6)
 
 
 class TestComputeDtype:

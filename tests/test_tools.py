@@ -197,18 +197,6 @@ class TestParityReportArtifacts:
         assert detail["fid_pixel"] == 0.5
         assert "workspace" in path
 
-    def test_committed_fid_artifact_parses(self):
-        """The committed artifacts/fid.json (restored measurement) must
-        stay loadable with the fields PARITY.md's Sample-quality section
-        and bench's attachment need."""
-        import json
-        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        with open(os.path.join(root, "artifacts", "fid.json")) as f:
-            d = json.load(f)["detail"]
-        for k in ("fid_pixel", "fid_pixel_data_floor", "fid_encoder",
-                  "fid_encoder_data_floor", "samples", "provenance"):
-            assert k in d
-
     def test_report_refuses_to_clobber_without_runs(self, tmp_path,
                                                     monkeypatch):
         """With the session-local workspace wiped (no <model>.done), main()
@@ -427,3 +415,66 @@ class TestThesisFigurePresets:
                                    "--out", str(tmp_path / "x.pdf")])
         assert rc == 1
 
+
+
+class TestCompileCache:
+    """enable_compile_cache (called by the CLI entry points only)."""
+
+    def test_env_var_wins(self, tmp_path, monkeypatch):
+        import jax
+        from hemx.utils.misc import enable_compile_cache
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        before = jax.config.jax_compilation_cache_dir
+        assert enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_fixed_path_in_checkout(self, monkeypatch):
+        import jax
+        from hemx.utils.misc import enable_compile_cache
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            path = enable_compile_cache()
+            assert path == os.path.join(root, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+            assert enable_compile_cache() == path  # fixed: same every call
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+
+
+class TestGraftEntry:
+    def test_too_few_devices_raise(self, monkeypatch):
+        """No silent fallback: a dry run asking for more devices than
+        exist fails (with a forced virtual CPU mesh absent)."""
+        import jax
+        import __graft_entry__ as ge
+        monkeypatch.setenv("XLA_FLAGS", "")
+        with pytest.raises(RuntimeError, match="needs"):
+            ge._ensure_devices(jax.device_count() + 1)
+
+
+class TestSideToolsStayOffDevices:
+    def test_gui_and_events_open_no_backend(self, cnn_run, tmp_path):
+        """visualize_gui.py and events.py run beside a training job, which
+        holds the card: they must never initialize a JAX backend (a GPU
+        backend would reserve most of the card's memory)."""
+        import subprocess
+        import sys
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        code = f"""
+import os, sys
+sys.path.insert(0, {root!r})
+import events, visualize_gui
+ws = os.path.dirname({cnn_run!r})
+assert visualize_gui.main(["--list", "--workspace", ws]) == 0
+visualize_gui.run_html(0, {cnn_run!r})
+visualize_gui.render_scalar_png({cnn_run!r}, "train", "losses/loss")
+assert events.main([{cnn_run!r}, "--out", {str(tmp_path / "l.png")!r}]) == 0
+from jax._src import xla_bridge
+assert not xla_bridge._backends, list(xla_bridge._backends)
+print("NO_BACKEND")
+"""
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300, cwd=root)
+        assert "NO_BACKEND" in r.stdout, r.stdout[-2000:] + r.stderr[-2000:]
